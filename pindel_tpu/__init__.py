@@ -1,14 +1,16 @@
-"""pindel_tpu — a TPU-native structural-variant caller with the capabilities of Pindel.
+"""pindel_tpu — a structural-variant caller with the capabilities of Pindel,
+running its search on an accelerator through JAX.
 
 A from-scratch JAX/XLA/Pallas implementation of split-read SV discovery
 (pattern-growth close-end / far-end anchor search, event geometry, clustering,
-reporting, VCF conversion), designed TPU-first:
+reporting, VCF conversion):
 
 * the hot pattern-growth search (reference: ``searcher.cpp``,
   ``farend_searcher.cpp``, ``pindel.cpp:2250-2902``) is re-expressed as a dense
   wavefront DP over (candidate-position lanes x prefix length), batched over
-  reads and executed on the TPU VPU/MXU via XLA and Pallas kernels;
-* multi-chip scaling shards read batches over a ``jax.sharding.Mesh``
+  reads and executed on the device via XLA and, on NVIDIA GPUs, a Triton
+  kernel written in Pallas;
+* multi-device scaling shards read batches over a ``jax.sharding.Mesh``
   (data-parallel over lanes) instead of the reference's OpenMP loops;
 * the host side (ingestion, event clustering, report/VCF emission) is
   Python/NumPy with a native C++ data plane for BAM decoding.

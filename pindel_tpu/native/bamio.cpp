@@ -8,7 +8,7 @@
 // bam_cigar2mismatch :1335-1346, HasIndel :706-718) on top of a
 // from-scratch BGZF/BAM parser (no htslib).  The whole file is decoded
 // once into struct-of-arrays in memory; window queries are binary
-// searches.  This is the host data plane of the TPU pipeline: it feeds
+// searches.  This is the host data plane of the pipeline: it feeds
 // packed read batches to the JAX search engine.
 //
 // BGZF is a sequence of gzip members, which zlib's gzFile reads

@@ -1,1 +1,2 @@
-"""Search kernels: NumPy oracle (exact semantics) and JAX/Pallas TPU kernels."""
+"""Search kernels: NumPy oracle (exact semantics), JAX engines and the
+Pallas (Triton) scan kernel for NVIDIA GPUs."""

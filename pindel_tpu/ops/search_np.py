@@ -4,7 +4,7 @@ The reference explores candidate alignments with a per-base recursion
 (``CheckLeft_Close``/``CheckRight_Close`` searcher.cpp:153-329,
 ``CheckBoth`` pindel.cpp:2823-2902, ``CategorizePositions`` searcher.cpp:48-63).
 That recursion is equivalent to the following dense computation, which is what
-the TPU kernels implement; this module is the bit-exact CPU reference.
+the JAX engines implement; this module is the bit-exact CPU reference.
 
 For a *lane* = (window of candidate seed positions, oriented query q of length
 n, direction):

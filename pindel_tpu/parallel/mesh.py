@@ -1,8 +1,7 @@
-"""Multi-chip sharded search: data-parallel reads × window-parallel lanes.
+"""Multi-device sharded search: data-parallel reads × window-parallel lanes.
 
 The reference scales with OpenMP threads over reads (read_buffer.cpp:39,
-pindel.cpp:1118); the TPU-native design shards over a 2-D
-``jax.sharding.Mesh``:
+pindel.cpp:1118); this design shards over a 2-D ``jax.sharding.Mesh``:
 
 * ``dp`` (data parallel): the read batch axis — no cross-talk;
 * ``wp`` (window parallel): candidate window columns — the per-length
@@ -22,10 +21,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pindel_tpu import dna
@@ -177,12 +173,8 @@ def build_sharded_search(mesh: Mesh, *, w_total: int, lmax: int, nl: int,
     in_specs = (P(), P("dp", None), P("dp", None), P("dp", None, None),
                 P("dp", None), P("dp"), P("dp"), P("dp"), P(), P("dp"))
     out_specs = (P("dp", None),) * 5
-    try:
-        sm = shard_map(body, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_vma=False)
-    except TypeError:  # older jax spells it check_rep
-        sm = shard_map(body, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_specs, check_rep=False)
+    sm = shard_map(body, mesh=mesh, in_specs=in_specs,
+                   out_specs=out_specs, check_vma=False)
     return jax.jit(sm)
 
 

@@ -1,4 +1,4 @@
-"""Multi-chip fused search: the production mesh backend.
+"""Multi-device fused search: the production mesh backend.
 
 Shards the fused engine (ops/engine_fused.py) data-parallel over the
 ``dp`` axis of a ``jax.sharding.Mesh``: each device owns a slice of the
@@ -9,16 +9,16 @@ pools) all live on the host after the compact per-read chain download.
 
 The reference's parallel precedent is the OpenMP loop over reads in
 ReadBuffer::flush (read_buffer.cpp:39-101) and SearchFarEnds
-(pindel.cpp:1115-1121); here the "threads" are chips.  The dp×wp
+(pindel.cpp:1115-1121); here the "threads" are devices.  The dp×wp
 window-sharded kernel with psum/pmin collectives lives in
 parallel/mesh.py and remains the scaling path for few-reads × huge-
 window workloads; data-parallel is the right layout for throughput
-(reads are abundant, windows fit one chip's VMEM pipeline).
+(reads are abundant, and one device holds a whole window's search).
 
-On a CPU test mesh (xla_force_host_platform_device_count) the per-device
-body runs the XLA scan path; on TPU devices it runs the Pallas kernel —
-the dispatch inside _scan_rows is per-process backend, identical
-semantics either way.
+The per-device body lowers the scan for the mesh's platform (see
+engine_fused._scan_rows): the Triton kernel on CUDA devices, the XLA
+scan on a CPU test mesh (xla_force_host_platform_device_count), with
+identical results.
 """
 from __future__ import annotations
 
@@ -28,10 +28,7 @@ from typing import Optional
 import jax
 import numpy as np
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pindel_tpu.ops import engine_fused as ef
@@ -44,12 +41,8 @@ def make_dp_mesh(n_devices: Optional[int] = None) -> Mesh:
 
 
 def _shard(body, mesh, in_specs, out_specs):
-    try:
-        return shard_map(body, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_vma=False)
-    except TypeError:  # older jax spells it check_rep
-        return shard_map(body, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+    return shard_map(body, mesh=mesh, in_specs=in_specs,
+                     out_specs=out_specs, check_vma=False)
 
 
 class MeshFusedBackend(ef.FusedJaxBackend):

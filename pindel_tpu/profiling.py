@@ -10,7 +10,7 @@ Mirrors the reference's coarse observability surface:
 * per-window read-intake counters (reference reader.cpp:57-62 and
   ``showReadStats`` reader.cpp:183-193).
 
-The TPU build adds finer-grained sub-phases (device launches, host decode,
+This build adds finer-grained sub-phases (device launches, host decode,
 report emission) under the same registry so that ``--profile`` output
 doubles as a kernel-level profile.
 """
@@ -156,7 +156,7 @@ class FallbackStats:
     exact-semantics NumPy oracle.  The fused design assumes this is rare
     (~0% on uniform scenes); golden tests assert the measured ratio so a
     scene shape that breaks chain uniformity becomes a test failure, not
-    a silent perf cliff (VERDICT r4 item 9)."""
+    a silent perf cliff."""
 
     def __init__(self) -> None:
         self.total = 0

@@ -13,8 +13,8 @@ each round is one batched device kernel launch over all still-active reads:
 
 Backends implement ``run(batch_lanes, bp_start, max_snps, tsec_minus)`` and
 return per-read (unique points, whole-read mismatch count of the last point):
-the NumPy oracle (exact-semantics CPU reference) or the batched JAX/TPU
-engine (ops/engine_jax.py).
+the NumPy oracle (exact-semantics CPU reference) or the batched JAX
+engines (ops/engine_jax.py, ops/engine_fused.py).
 """
 from __future__ import annotations
 

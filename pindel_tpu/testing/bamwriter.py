@@ -1,6 +1,7 @@
-"""Minimal BAM writer (test tooling): composes BGZF-compressed BAM files
-from explicit alignment records so the native reader and the BAM channel
-can be exercised without external aligners or htslib.
+"""Minimal BAM writer (test and benchmark tooling): composes
+BGZF-compressed BAM files from explicit alignment records so the native
+reader and the BAM channel can be exercised without external aligners or
+htslib.
 
 BAM/BGZF layout per the SAM spec (htslib not used; everything from the
 published format): BGZF = gzip members with a BC extra field carrying the
@@ -104,3 +105,37 @@ def write_bam(path: str, refs: List[Tuple[str, int]],
         payload += rec.pack()
     with open(path, "wb") as fh:
         fh.write(bgzf_compress(bytes(payload)))
+
+
+def anchored_pair(qname: str, anchor_pos: int, mate_seq: str, ref: str,
+                  anchor_reverse: bool = False, read_len: int = 100,
+                  mate_first: bool = False, mapq: int = 60
+                  ) -> List[BamRecord]:
+    """An anchored pair: clean mapped anchor + unmapped split mate."""
+    flag_a = FLAG_PAIRED | (FLAG_REVERSE if anchor_reverse else 0)
+    anchor = BamRecord(qname, flag_a, 0, anchor_pos, mapq,
+                       [(read_len, "M")], 0, anchor_pos, 0,
+                       ref[anchor_pos:anchor_pos + read_len],
+                       tags={"NM": 0})
+    mate = BamRecord(qname, FLAG_PAIRED | FLAG_UNMAP | FLAG_READ1,
+                     0, anchor_pos, 0, [], 0, anchor_pos, 0, mate_seq)
+    return [mate, anchor] if mate_first else [anchor, mate]
+
+
+def split_read_pairs(reads, ref: str, read_len: int = 100
+                     ) -> List[BamRecord]:
+    """Anchored BAM pairs for simulated split reads (``SimReads``): the
+    anchor mate maps at the read's anchor position, the split mate is
+    unmapped.  Reads whose anchor would leave the reference are dropped;
+    records come sorted by position."""
+    recs: List[BamRecord] = []
+    for name, seq, meta in zip(reads.names, reads.seqs, reads.metas):
+        dstr, _chrom, pos, mq = meta[:4]
+        anchor_pos = pos if dstr == "+" else pos - read_len
+        if anchor_pos < 0 or anchor_pos + read_len > len(ref):
+            continue
+        recs.extend(anchored_pair(name[:-2], anchor_pos, seq, ref,
+                                  anchor_reverse=(dstr == "-"),
+                                  read_len=read_len, mapq=mq))
+    recs.sort(key=lambda r: r.pos)
+    return recs

@@ -9,9 +9,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from bamwriter import write_bam  # noqa: E402
+from pindel_tpu.testing.bamwriter import write_bam  # noqa: E402
 from make_fai import make_fai  # noqa: E402
-from test_bam_channel import _pair  # noqa: E402
+from pindel_tpu.testing.bamwriter import anchored_pair  # noqa: E402
 
 from pindel_tpu.assembly import (clean_up_close_end, combine_reads,  # noqa: E402
                                  read_assembly_file, try_li_merges)
@@ -119,7 +119,7 @@ def test_assembly_end_to_end_deletion(tmp_path):
         frag = ref[bp - flank: bp] + ref[bp + size: bp + size + 100 - flank]
         gap = 80 + k * 5
         anchor_pos = bp - flank - gap - 100
-        recs.extend(_pair(f"a{k}", anchor_pos, rc(frag), ref))
+        recs.extend(anchored_pair(f"a{k}", anchor_pos, rc(frag), ref))
     recs.sort(key=lambda r: r.pos)
     bam = os.path.join(d, "reads.bam")
     write_bam(bam, [("chrT", len(ref))], recs)

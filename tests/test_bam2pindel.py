@@ -9,9 +9,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from bamwriter import write_bam  # noqa: E402
+from pindel_tpu.testing.bamwriter import write_bam  # noqa: E402
 from make_fai import make_fai  # noqa: E402
-from test_bam_channel import _pair  # noqa: E402
+from pindel_tpu.testing.bamwriter import anchored_pair  # noqa: E402
 
 from pindel_tpu.testing.simulate import random_seq, rc, write_fasta  # noqa: E402
 
@@ -29,7 +29,7 @@ def test_bam2pindel_roundtrip(tmp_path):
         flank = 35 + k * 5
         frag = ref[bp - flank: bp] + ref[bp + size: bp + size + 100 - flank]
         anchor_pos = bp - flank - 150 - 100
-        recs.extend(_pair(f"r{k}", anchor_pos, rc(frag), ref))
+        recs.extend(anchored_pair(f"r{k}", anchor_pos, rc(frag), ref))
     recs.sort(key=lambda r: r.pos)
     bam = os.path.join(d, "reads.bam")
     write_bam(bam, [("chrQ", len(ref))], recs)

@@ -20,30 +20,18 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from bamwriter import (FLAG_PAIRED, FLAG_READ1, FLAG_READ2,  # noqa: E402
-                       FLAG_REVERSE, FLAG_UNMAP, BamRecord, write_bam)
 from make_fai import make_fai  # noqa: E402
 
 from pindel_tpu.bam import BamReader, read_bam_config  # noqa: E402
-
-
-def _pair(qname, anchor_pos, mate_seq, ref, anchor_reverse=False,
-          read_len=100, mate_first=False, mapq=60):
-    """An anchored pair: clean mapped anchor + unmapped weird mate."""
-    flag_a = FLAG_PAIRED | (FLAG_REVERSE if anchor_reverse else 0)
-    anchor = BamRecord(qname, flag_a, 0, anchor_pos, mapq,
-                       [(read_len, "M")], 0, anchor_pos, 0,
-                       ref[anchor_pos:anchor_pos + read_len],
-                       tags={"NM": 0})
-    mate = BamRecord(qname, FLAG_PAIRED | FLAG_UNMAP | FLAG_READ1,
-                     0, anchor_pos, 0, [], 0, anchor_pos, 0, mate_seq)
-    return [mate, anchor] if mate_first else [anchor, mate]
+from pindel_tpu.testing.bamwriter import (  # noqa: E402
+    FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE, BamRecord,
+    anchored_pair, write_bam)
 
 
 def test_reader_basics(tmp_path):
     ref = "ACGT" * 3000
-    recs = _pair("q1", 100, "TTAC" * 25, ref)
-    recs += _pair("q2", 500, "GGCA" * 25, ref, anchor_reverse=True)
+    recs = anchored_pair("q1", 100, "TTAC" * 25, ref)
+    recs += anchored_pair("q2", 500, "GGCA" * 25, ref, anchor_reverse=True)
     bam = str(tmp_path / "t.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
     br = BamReader(bam)
@@ -64,7 +52,7 @@ def test_reader_self_record_quirk(tmp_path):
     mate is self-built once at first sight and AGAIN when the pair
     completes, plus the anchored record — three records total."""
     ref = "ACGT" * 3000
-    recs = _pair("q1", 100, "TTAC" * 25, ref, mate_first=True)
+    recs = anchored_pair("q1", 100, "TTAC" * 25, ref, mate_first=True)
     bam = str(tmp_path / "t.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
     reads, _ = BamReader(bam).collect_sr("chrT", 0, len(ref), 500, "S1",
@@ -78,13 +66,13 @@ def test_reader_gates(tmp_path):
     ref = "ACGT" * 3000
     recs = []
     # too short after N-trim (< 22, reader.cpp:849)
-    recs += _pair("short", 100, "N" * 40 + "ACGTACGTACGTACGTACGTA" + "N" * 39,
-                  ref)
+    recs += anchored_pair(
+        "short", 100, "N" * 40 + "ACGTACGTACGTACGTACGTA" + "N" * 39, ref)
     # too many interior Ns (> 10%)
     seq = ("ACGTACGTACGT" + "N" * 12 + "ACGT" * 19)
-    recs += _pair("enn", 300, seq, ref)
+    recs += anchored_pair("enn", 300, seq, ref)
     # fine read with leading/trailing N trim
-    recs += _pair("ok", 500, "NN" + "TGCA" * 24 + "NN", ref)
+    recs += anchored_pair("ok", 500, "NN" + "TGCA" * 24 + "NN", ref)
     bam = str(tmp_path / "t.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
     reads, _ = BamReader(bam).collect_sr("chrT", 0, len(ref), 500, "S1",
@@ -95,7 +83,7 @@ def test_reader_gates(tmp_path):
 
 def test_reader_reverse_mate_rc(tmp_path):
     ref = "ACGT" * 3000
-    recs = _pair("q", 100, "AACC" * 25, ref)
+    recs = anchored_pair("q", 100, "AACC" * 25, ref)
     recs[1].flag |= FLAG_REVERSE      # unmapped mate marked reverse
     bam = str(tmp_path / "t.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
@@ -106,8 +94,8 @@ def test_reader_reverse_mate_rc(tmp_path):
 
 def test_reader_window_query(tmp_path):
     ref = "ACGT" * 3000
-    recs = (_pair("a", 100, "TTAC" * 25, ref)
-            + _pair("b", 5000, "GGCA" * 25, ref))
+    recs = (anchored_pair("a", 100, "TTAC" * 25, ref)
+                          + anchored_pair("b", 5000, "GGCA" * 25, ref))
     bam = str(tmp_path / "t.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
     br = BamReader(bam)
@@ -157,8 +145,8 @@ def _scene_bam_and_text(tmp_path, seed=3):
     text_lines = []
     for anchor_pos, name, seq, dstr, pos, mq, ins, tag, reverse in entries:
         qname = name[1:-2] if name.startswith("@") else name[:-2]
-        bam_records.extend(_pair(qname, anchor_pos, seq, ref,
-                                 anchor_reverse=reverse, mapq=mq))
+        bam_records.extend(anchored_pair(qname, anchor_pos, seq, ref,
+                                         anchor_reverse=reverse, mapq=mq))
         at_name = name if name.startswith("@") else "@" + name
         text_lines.append(f"{at_name}\n{seq}\n{dstr}\tchrT\t{pos}\t{mq}"
                           f"\t{ins}\t{tag}\n")
@@ -206,8 +194,8 @@ def test_bam_ref_coverage_columns(tmp_path, backend):
         name, seq, meta = lines[i], lines[i + 1], lines[i + 2].split()
         dstr, pos, mq = meta[0], int(meta[2]), int(meta[3])
         anchor_pos = pos if dstr == "+" else pos - 100
-        scene_recs.extend(_pair(name[1:-2], anchor_pos, seq, ref,
-                                anchor_reverse=(dstr == "-"), mapq=mq))
+        scene_recs.extend(anchored_pair(name[1:-2], anchor_pos, seq, ref,
+                                        anchor_reverse=(dstr == "-"), mapq=mq))
     extra = []
     for start in range(0, 59_600, 200):
         extra.append(BamRecord(

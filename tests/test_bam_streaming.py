@@ -1,8 +1,8 @@
 """Streamed BAM intake (native/bamio.cpp streamed mode): window-ranged
 decode over the first-pass block index must be (a) result-identical to
 the whole-file decode on every channel, and (b) memory-bounded — only
-the current window's records resident (VERDICT r4 missing item 1; the
-reference shape is per-window htslib range queries, reader.cpp:483-559).
+the current window's records resident (the reference shape is
+per-window htslib range queries, reader.cpp:483-559).
 """
 import os
 import sys
@@ -19,10 +19,10 @@ MEI_BAM = "/root/reference/demo/simulated_MEI/aln.sorted.bam"
 def _scene_bam(tmp_path, chrom_len=120_000, n_events=10):
     """Multi-window BAM: paired reads over a chromosome long enough for
     several 10 kb windows."""
-    from bamwriter import write_bam
+    from pindel_tpu.testing.bamwriter import write_bam
 
     from pindel_tpu.testing.simulate import standard_scene, write_fasta
-    from test_bam_channel import _pair
+    from pindel_tpu.testing.bamwriter import anchored_pair
     d = str(tmp_path)
     ref, events, reads = standard_scene(
         seed=77, chrom_len=chrom_len,
@@ -37,8 +37,8 @@ def _scene_bam(tmp_path, chrom_len=120_000, n_events=10):
         anchor_pos = pos if dstr == "+" else pos - 100
         if anchor_pos < 0 or anchor_pos + 100 > len(ref):
             continue
-        recs.extend(_pair(name[1:-2], anchor_pos, seq, ref,
-                          anchor_reverse=(dstr == "-"), mapq=mq))
+        recs.extend(anchored_pair(name[1:-2], anchor_pos, seq, ref,
+                                  anchor_reverse=(dstr == "-"), mapq=mq))
     recs.sort(key=lambda r: r.pos)
     bam = os.path.join(d, "reads.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
@@ -127,11 +127,11 @@ def test_streamed_multi_chromosome(tmp_path):
     them."""
     import dataclasses
 
-    from bamwriter import write_bam
+    from pindel_tpu.testing.bamwriter import write_bam
 
     from pindel_tpu.bam import BamReader
     from pindel_tpu.testing.simulate import random_seq
-    from test_bam_channel import _pair
+    from pindel_tpu.testing.bamwriter import anchored_pair
     rng = np.random.default_rng(5)
     refs = {"chrA": random_seq(rng, 40_000), "chrC": random_seq(rng, 30_000)}
     names = ["chrA", "chrB", "chrC"]          # chrB stays empty
@@ -144,7 +144,7 @@ def test_streamed_multi_chromosome(tmp_path):
         for k in range(60):
             pos = 500 + k * ((len(ref) - 1200) // 60)
             frag = ref[pos + 150:pos + 250]
-            pair = _pair(f"r{name}{k}", pos, frag, ref, mapq=60)
+            pair = anchored_pair(f"r{name}{k}", pos, frag, ref, mapq=60)
             recs.extend(dataclasses.replace(r, tid=tid, mate_tid=tid)
                         for r in pair)
     bam = os.path.join(str(tmp_path), "multi.bam")

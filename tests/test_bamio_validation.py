@@ -1,7 +1,7 @@
 """Independent validation of the native BAM decoder (native/bamio.cpp).
 
-Two attack angles on VERDICT r3 item 5 ("a shared decode bug in
-hts_stub + bamio.cpp is invisible to the golden suite"):
+Two attack angles on the risk that a shared decode bug in hts_stub +
+bamio.cpp is invisible to the golden suite:
 
 1. The full ``-i`` discovery pipeline on the ONE real aligner-produced
    BAM in the tree (/root/reference/demo/simulated_MEI/aln.sorted.bam,

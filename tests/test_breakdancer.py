@@ -87,8 +87,8 @@ def test_bd_guided_far_end_bam_input(tmp_path, backend):
     """With BAM input, UpdateBD activates the external BD windows each
     window, so the 6 kb deletion (beyond the -x 2 geometric ladder) is
     found — and -Q confirms it against the BD call."""
-    from test_bam_channel import _pair
-    from bamwriter import write_bam
+    from pindel_tpu.testing.bamwriter import anchored_pair
+    from pindel_tpu.testing.bamwriter import write_bam
 
     d, fa, txt, bd, events = _big_del_scene(tmp_path)
     from pindel_tpu.testing.simulate import standard_scene  # for ref only
@@ -101,8 +101,8 @@ def test_bd_guided_far_end_bam_input(tmp_path, backend):
         anchor_pos = pos if dstr == "+" else pos - 100
         if anchor_pos < 0 or anchor_pos + 100 > len(ref):
             continue
-        recs.extend(_pair(name[1:-2], anchor_pos, seq, ref,
-                          anchor_reverse=(dstr == "-"), mapq=mq))
+        recs.extend(anchored_pair(name[1:-2], anchor_pos, seq, ref,
+                                  anchor_reverse=(dstr == "-"), mapq=mq))
     recs.sort(key=lambda r: r.pos)
     bam = os.path.join(d, "reads.bam")
     write_bam(bam, [("chrT", len(ref))], recs)
@@ -161,8 +161,9 @@ def test_rp_modify_and_summarize_unit():
 def test_rp_discovery_from_bam(tmp_path):
     """End-to-end: discordant pairs in a BAM produce a _RP record and a
     BD-like search window."""
-    from bamwriter import (FLAG_MREVERSE, FLAG_PAIRED, FLAG_READ1,
-                           FLAG_READ2, FLAG_REVERSE, BamRecord, write_bam)
+    from pindel_tpu.testing.bamwriter import (
+        FLAG_MREVERSE, FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE,
+        BamRecord, write_bam)
 
     from pindel_tpu.bam import BamReader
     ref_len = 60_000

@@ -19,9 +19,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from bamwriter import (FLAG_MREVERSE, FLAG_MUNMAP, FLAG_PAIRED,  # noqa: E402
-                       FLAG_READ1, FLAG_READ2, FLAG_REVERSE, FLAG_UNMAP,
-                       BamRecord, write_bam)
+from pindel_tpu.testing.bamwriter import (  # noqa: E402
+    FLAG_MREVERSE, FLAG_MUNMAP, FLAG_PAIRED, FLAG_READ1, FLAG_READ2,
+    FLAG_REVERSE, FLAG_UNMAP, BamRecord, write_bam)
 from make_fai import make_fai  # noqa: E402
 
 from test_golden_vs_reference import oracle  # noqa: E402,F401

@@ -14,8 +14,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from bamwriter import (FLAG_MREVERSE, FLAG_PAIRED, FLAG_READ1,  # noqa: E402
-                       FLAG_READ2, FLAG_REVERSE, BamRecord, write_bam)
+from pindel_tpu.testing.bamwriter import (  # noqa: E402
+    FLAG_MREVERSE, FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE,
+    BamRecord, write_bam)
 from make_fai import make_fai  # noqa: E402
 
 from pindel_tpu.genotyping import (GenotypingSV, genotype_del_rp,  # noqa: E402

@@ -9,9 +9,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from bamwriter import write_bam  # noqa: E402
+from pindel_tpu.testing.bamwriter import write_bam  # noqa: E402
 from make_fai import make_fai  # noqa: E402
-from test_bam_channel import _pair  # noqa: E402
+from pindel_tpu.testing.bamwriter import anchored_pair  # noqa: E402
 
 from pindel_tpu.testing.simulate import random_seq, rc, write_fasta  # noqa: E402
 
@@ -39,7 +39,7 @@ def test_translocation_int_report(tmp_path, backend):
         # '+' anchor on chrA upstream of the breakpoint
         gap = int(rng.integers(60, 300))
         anchor_pos = bp_a - flank - gap - 100
-        recs.extend(_pair(f"t{k}", anchor_pos, rc(frag), ref_a))
+        recs.extend(anchored_pair(f"t{k}", anchor_pos, rc(frag), ref_a))
     recs.sort(key=lambda r: r.pos)
     bam = os.path.join(d, "reads.bam")
     write_bam(bam, refs, recs)

@@ -1,17 +1,12 @@
-"""Performance-budget gate (reference test/SmallTest/execution_time.sh,
+"""Host-layer budget (reference test/SmallTest/execution_time.sh,
 Makefile:54-61: acceptance configs must finish under a wall-time budget).
 
-Two layers here:
-
-* this pytest: the host layers (intake, decode, detectors, reporters) on
-  a fixed CPU scene must stay under a generous wall budget — it catches
-  algorithmic regressions (accidental O(reads x windows) rescans,
-  per-read python loops creeping back) independent of TPU availability.
-  The first run warms the XLA compile cache and is not budgeted.
-* tools/perf_gate.py: runs bench.py on the real chip and fails if
-  vs_baseline drops below the floor recorded in PERF_BUDGET.json.
+The host layers (intake, decode, detectors, reporters) on a fixed CPU
+scene must stay under a generous wall budget — it catches algorithmic
+regressions (accidental O(reads x windows) rescans, per-read python
+loops creeping back) on any machine.  The first run warms the XLA
+compile cache and is not budgeted.
 """
-import json
 import os
 import sys
 import time
@@ -23,7 +18,7 @@ from make_fai import make_fai  # noqa: E402
 
 # generous: ~100x the measured warm wall (0.12 s for 760 reads) so CI /
 # shared-host noise never trips it (the box swings +/-20% and has stalled
-# for minutes at a time — BENCH_local_r5.json) while a 100x algorithmic
+# for minutes at a time) while a 100x algorithmic
 # regression (the class this guards against: accidental O(reads x
 # windows) rescans, per-read python loops) still fails loudly
 HOST_BUDGET_SECONDS = 12.0
@@ -59,8 +54,3 @@ def test_host_layers_within_budget(tmp_path):
         f"host layers took {wall:.2f}s for {n_reads} reads — over the "
         f"{HOST_BUDGET_SECONDS}s budget (see tests/test_perf_budget.py)")
 
-
-def test_perf_budget_file_is_sane():
-    with open(os.path.join(REPO, "PERF_BUDGET.json")) as fh:
-        budget = json.load(fh)
-    assert budget["min_vs_baseline"] >= 1.0

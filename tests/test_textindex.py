@@ -1,6 +1,6 @@
 """Streaming text intake (textindex.py): byte-identical to the in-RAM
 loader across multi-chromosome, multi-window scenes, with an O(window)
-working set (VERDICT r3 item 8)."""
+working set."""
 import os
 
 import numpy as np
@@ -104,8 +104,8 @@ def test_streaming_multi_file_config_order(tmp_path):
 def test_gz_input_streams_via_spill(tmp_path):
     """gz pindel text: decompressed once into a scratch spill, indexed
     there — reports byte-identical to the plain-text run, spill removed
-    on close (VERDICT r4 item 10; reference gz_line_reader.cpp instead
-    re-decompresses the whole file every window)."""
+    on close (reference gz_line_reader.cpp instead re-decompresses the
+    whole file every window)."""
     import glob
     import gzip
     import tempfile

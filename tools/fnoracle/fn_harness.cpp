@@ -1,7 +1,7 @@
 // Test harness that EXECUTES reference pindel functions on synthetic
 // inputs fed via stdin, so the Python re-implementations of the
 // genotyping / assembly cores can be pinned by execution instead of by
-// reading the C++ (VERDICT r3 item 7).  Links against the oracle build's
+// reading the C++.  Links against the oracle build's
 // object files (tools/build_reference_oracle.sh) with pindel.o's main
 // renamed away; nothing from the reference tree is copied.
 //

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Microbenchmark the fused close/far kernels on the real chip.
+"""Microbenchmark the fused close/far kernels on the device.
 
 Times a warm _close_kernel_jit / _far_kernel_jit launch at bench-scene
 shapes (b=16384, w0=512, w1=1536, lmax=128, lsteps=112) so device cost
@@ -21,21 +21,25 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from pindel_tpu.ops.engine_fused import (_close_kernel_jit,
+    from pindel_tpu.ops.engine_fused import (_chrom_cat, _close_kernel_jit,
                                              _close_meta, _far_kernel_jit,
                                              _far_meta, _pack_payload)
     from pindel_tpu.genome import SPACER
 
     rng = np.random.default_rng(0)
     chrom_len = 6_000_000 + 2 * SPACER
-    chrom = jnp.asarray(rng.integers(0, 4, chrom_len, dtype=np.int8))
+    chrom = _chrom_cat(jnp.asarray(rng.integers(0, 4, chrom_len,
+                                                dtype=np.int8)))
     maxmm = jnp.asarray(np.minimum(np.arange(512) // 20 + 2, 30)
                         .astype(np.int32))
 
     b = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
+    dev = jax.devices()[0]
+    print(f"device {dev.platform} {dev.device_kind}")
     lmax = 128
     qlen = np.full(b, 100, np.int32)
-    codes = rng.integers(0, 4, (b, lmax), dtype=np.int8)
+    # close payloads carry each read and its within-qlen reverse
+    codes = rng.integers(0, 4, (b, 2 * lmax), dtype=np.int8)
     pos = rng.integers(10_000, 5_900_000, b).astype(np.int64)
     isz = np.full(b, 500, np.int64)
     ms = np.full(b, 5, np.int32)
@@ -75,7 +79,7 @@ def main() -> int:
     center = rng.integers(200_000, 5_800_000, b).astype(np.int64)
     fmeta = _far_meta(center, qlen, np.full(b, 40, np.int32),
                       np.zeros(b, np.int32), ms, tm, thr, chrom_len)
-    fpayload = jnp.asarray(_pack_payload(codes, fmeta))
+    fpayload = jnp.asarray(_pack_payload(codes[:, :lmax], fmeta))
 
     def far():
         out = _far_kernel_jit(chrom, fpayload, maxmm,
